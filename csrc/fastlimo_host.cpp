@@ -2,7 +2,8 @@
 //
 // The reference's "runtime" is C++ end to end (ROS callbacks, PCL filters,
 // std::partial_sort deskew prep — Modules/Localizer.cpp:262-321,733-805).
-// Here the TPU owns the compute path; this library owns the host data path:
+// Here the accelerator owns the compute path; this library owns the host
+// data path:
 //
 //  * KITTI velodyne .bin parsing with azimuth-derived per-point times
 //  * the preprocessing filter chain + time sort (produces the padded arrays
@@ -169,8 +170,7 @@ int flh_ring_pop(void* ring, void* item) {
 // one-pass int16 scan packing for the transfer-minimal dispatch path
 // (Localizer._pack_scan with tpu.quantize_transfer > 0): quantize xyz by
 // `quant` metres/LSB, pick t_scale = max|t_raw|/32767, quantize t_raw by it.
-// Replaces a 4-op NumPy chain measured at 1-2 ms/scan on the streaming host
-// (tools/probe_chunk_anomaly.py) with a single ~0.1 ms pass.
+// Replaces a 4-op NumPy chain with a single pass.
 // out is (n_cap, 4) int16 rows [x, y, z, t], zero-padded past n.
 // Rounding matches np.rint (round-half-to-even = default FP environment).
 // ---------------------------------------------------------------------------

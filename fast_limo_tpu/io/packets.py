@@ -4,7 +4,7 @@ fast_LIMO is "developed with the purpose to be used with a modified LiDAR
 driver capable of sending each scan packet as soon as it is ready, instead
 of waiting for the LiDAR to complete a full rotation"
 (reference README.md:247) — its `updatePointCloud` simply runs more often
-on partial clouds.  The TPU engine inherits the same property: every
+on partial clouds.  This engine inherits the same property: every
 dispatch is a fixed-shape padded batch with a validity mask, so a packet
 is just a small scan — feed it through `update_pointcloud` with the
 SWEEP's header stamp and the packet's per-point time subset, and deskew /

@@ -3,7 +3,7 @@
 The reference runs its two sensor callbacks on a ROS ``AsyncSpinner(0)``
 thread pool with mutex/condvar handoff into the filter (src/main.cpp:209,
 Localizer.cpp:326,596-605,882-889): an IMU callback must NEVER block on a
-scan update.  The TPU-native counterpart is this ingestion layer: producer
+scan update.  The counterpart here is this ingestion layer: producer
 threads ``push_imu``/``push_scan`` and return immediately — IMU records ride
 the lock-free C SPSC ring (csrc/fastlimo_host.cpp, 56-byte records), scans a
 thread-safe queue — while ONE dispatch thread drains both into the engine in

@@ -68,22 +68,7 @@ def deskew(points, t_pts, valid, frames: Frames, x_last: st.NavState,
     (Localizer.cpp:356).
 
     Returns (pts_xt2 (N,3), pts_world (N,3)).
-
-    On TPU f32 the whole chain — frame selection, forward integration,
-    extrinsic/world/Xt2 transforms — runs as ONE Pallas launch
-    (ops/deskew_kernel.py); the jnp path below is the identical-semantics
-    fallback/oracle.
     """
-    from fast_limo_tpu.ops import dispatch
-
-    if dispatch.kernel_enabled("deskew") and points.dtype == jnp.float32:
-        from fast_limo_tpu.ops import deskew_kernel
-
-        if deskew_kernel._HAS_PALLAS:
-            return deskew_kernel.deskew_tpu(
-                points, t_pts, valid, frames, x_last.rot, x_last.pos,
-                q_ext, t_ext)
-
     ftime = jnp.where(frames.valid, frames.time, jnp.inf)
     idx = jnp.clip(jnp.searchsorted(ftime, t_pts, side="right") - 1, 0, None)
 

@@ -1,7 +1,7 @@
 """Small-cloud rigid registration for loop-closure verification.
 
-TPU-first ICP: correspondence search is a dense (M,N) squared-distance
-matrix — one big matmul on the MXU — followed by a weighted Kabsch/Umeyama
+Array-program ICP: correspondence search is a dense (M,N) squared-distance
+matrix — one big matmul — followed by a weighted Kabsch/Umeyama
 solve per iteration inside `lax.scan`.  Used to turn a ScanContext hit into
 a verified relative-pose constraint (and for KISS-Matcher-style
 relocalization refinement).
@@ -27,7 +27,7 @@ class ICPResult(NamedTuple):
 
 
 def _sq_dists(a, b):
-    """(M,N) squared distances via the |a|²+|b|²−2a·b expansion (MXU)."""
+    """(M,N) squared distances via the |a|²+|b|²−2a·b expansion (a matmul)."""
     return (jnp.sum(a * a, axis=-1)[:, None]
             + jnp.sum(b * b, axis=-1)[None, :]
             - 2.0 * a @ b.T)

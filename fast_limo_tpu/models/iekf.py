@@ -30,7 +30,8 @@ import jax.numpy as jnp
 
 from fast_limo_tpu.models import process
 from fast_limo_tpu.models import state as st
-from fast_limo_tpu.ops import linalg, s2, so3
+from fast_limo_tpu.ops import gain as gain_op
+from fast_limo_tpu.ops import s2, so3
 
 N = st.ERR_DIM  # 23
 M_OBS = 12      # columns of the measurement Jacobian (esekfom.hpp:1647)
@@ -115,7 +116,7 @@ def predict_scan(x: st.NavState, P, imu_stack, Q):
     mirroring the propagated_buffer the reference fills per IMU tick
     (Localizer.cpp:600-605).
 
-    TPU-native structure — the K-step chain has NO sequential part at all:
+    Parallel structure — the K-step chain has NO sequential part at all:
     1. the mean chain is preintegration in disguise: the orientation is a
        prefix product of per-step exponential quaternions (associative →
        ``lax.associative_scan``, log₂K depth), and velocity/position are
@@ -210,9 +211,8 @@ def _degeneracy_guard(HTH, dx_, D):
     ``lax.cond``.  NOTE (measured, tools/oracle_corridor.py): on real bench
     geometry the bound is hugely negative on every scan (strong pos↔rot
     coupling at 20 m lever arms) while the true eigenvalues are fine, so
-    this certificate rarely engages — it is kept for the off-TPU path
-    only; the TPU kernels run the guard exactly in-kernel
-    (ops/update_body.jacobi_guard_head) with no certificate at all.
+    this certificate rarely engages and the ``eigh`` runs on most
+    iterations.
 
     DELIBERATE DIVERGENCE from the reference's literal code: the reference
     zeroes ROWS of the eigenvector matrix and applies ``V⁻¹·(sel·dx)``
@@ -222,9 +222,8 @@ def _degeneracy_guard(HTH, dx_, D):
     (verified numerically: flipping one eigh column sign changes the
     result).  The evident intent — zero the update's components ALONG
     eigendirections with eigenvalue < D — is the spectral projector
-    ``V·diag(m)·Vᵀ``, which is sign- and basis-invariant; both this path,
-    the in-kernel guard (ops/update_body.jacobi_guard_head), and the f64
-    test oracle implement it.  The reference's near-singular fallback
+    ``V·diag(m)·Vᵀ``, which is sign- and basis-invariant; both this path
+    and the f64 test oracle implement it.  The reference's near-singular fallback
     (prod(w) < 1e-20 → V = I: zero components by ascending-eigenvalue
     index) is kept as-is.
 
@@ -307,12 +306,10 @@ def _body_jnp(x: st.NavState, x_prop: st.NavState, P_prop, HTH, HTh, R, D):
     # path but f32-stable: no P⁻¹ is ever formed (the double inversion
     # spans ~9 decades and breaks in single precision; the reference
     # sidesteps it by running in double).  The pivoting in the solve is
-    # load-bearing; see ops/gain.py for the measured-and-rejected
-    # alternatives (unpivoted Cholesky variants drift the filter, the
-    # non-normal push-through form diverges with estimate_extrinsics).
-    from fast_limo_tpu.ops import gain as gain_op
-
-    K_x12, K_h, K = gain_op.gain(HTH, HTh, P_it, R)   # (23,12), (23,), (23,12)
+    # load-bearing (ops/gain.py): unpivoted Cholesky variants drift the
+    # filter, and the non-normal push-through form diverges with
+    # estimate_extrinsics.
+    K_x12, K_h, K = gain_op.gain_reference(HTH, HTh, P_it, R)
     K_x = jnp.zeros((N, N), dtype=dtype).at[:, 0:M_OBS].set(
         K_x12.astype(dtype))
     K_h = K_h.astype(dtype)
@@ -347,17 +344,11 @@ def update_iterated(
     ``limit`` the per-dimension convergence limit (LIMITS broadcast,
     main.cpp:164-166).
 
-    On TPU f32 the whole per-iteration body between ``h_model`` and the
-    loop bookkeeping — chart projection, gain, degeneracy guard (exact,
-    in-kernel Jacobi eigh), boxplus, terminal covariance — runs as ONE
-    fused Pallas kernel (ops/update_body.py); with frozen correspondences
-    the ENTIRE loop collapses to one launch (ops/update_loop.py).
-
     Returns (x', P', n_iters); with ``with_diag=True`` additionally a dict
     ``{"gersh_min": (), "min_eig": (), "guard_fired": ()}`` — the minimum
     Gershgorin lower bound on the 6×6 pose block of HᵀH across iterations
     (conditioning telemetry), the exact minimum pose-block eigenvalue
-    (+inf when a Gershgorin certificate skipped the off-TPU eigh), and
+    (+inf when a Gershgorin certificate skipped the eigh), and
     whether the degeneracy guard actually zeroed directions
     (min_eig < D).  The telemetry behind DebugOutput's degeneracy fields
     (the reference prints nothing when its guard zeroes directions,
@@ -366,19 +357,6 @@ def update_iterated(
     """
     dtype = x.pos.dtype
     x_prop, P_prop = x, P
-
-    from fast_limo_tpu.ops import dispatch
-
-    use_kernel = dispatch.kernel_enabled("update_body") and dtype == jnp.float32
-
-    # Whole-loop fast path: the ENTIRE masked iteration loop (incl.
-    # per-iteration h-stats over the certified frozen correspondences) is
-    # one Pallas launch (ops/update_loop.py); its ok-certificate
-    # (atan-series regime + the per-query re-match stability margins) gates
-    # an exact-semantics fallback to the per-iteration loop below.
-    loop_pack = getattr(h_model, "loop_pack", None)
-    use_loop_kernel = (use_kernel and loop_pack is not None
-                       and dispatch.kernel_enabled("update_loop"))
 
     def cond(carry):
         return ~carry["done"]
@@ -391,21 +369,10 @@ def update_iterated(
         HTH = HTH.astype(dtype)                # (12,12); zero rows are no-ops
         HTh = HTh.astype(dtype)                # (12,)
 
-        if use_kernel:
-            from fast_limo_tpu.ops import update_body
-
-            # the degeneracy guard runs EXACTLY in-kernel (Jacobi eigh) —
-            # no certificate, no fallback branch (the old Gershgorin
-            # certificate never held on real bench geometry, so every
-            # iteration silently paid the jnp eigh path)
-            x_next, P_fin, dx_, gm, me = update_body.update_body_tpu(
-                HTH, HTh, P_prop, x, x_prop, R, D)
-        else:
-            H6 = HTH[0:6, 0:6]
-            hd = jnp.diagonal(H6)
-            gm = jnp.min(hd - (jnp.sum(jnp.abs(H6), axis=1) - jnp.abs(hd)))
-            x_next, P_fin, dx_, me = _body_jnp(x, x_prop, P_prop, HTH, HTh,
-                                               R, D)
+        H6 = HTH[0:6, 0:6]
+        hd = jnp.diagonal(H6)
+        gm = jnp.min(hd - (jnp.sum(jnp.abs(H6), axis=1) - jnp.abs(hd)))
+        x_next, P_fin, dx_, me = _body_jnp(x, x_prop, P_prop, HTH, HTh, R, D)
 
         converged = jnp.all(jnp.abs(dx_) <= limit)
         t_next = carry["t"] + converged.astype(jnp.int32)
@@ -436,55 +403,29 @@ def update_iterated(
     if unroll is None:
         unroll = max_iters <= 8
 
-    def run_loop():
-        if unroll:
-            # Unrolled masked iterations: the same math as the while_loop
-            # (tests/test_iekf.py: equal iteration counts, states to f64
-            # reassociation noise), but XLA schedules the whole chain as
-            # straight-line code — no per-iteration loop bookkeeping /
-            # kernel-launch barriers.  With MAX_NUM_ITERS=3 and the
-            # two-converged-iterations stop rule the loop almost always runs
-            # to max anyway, so the masked extra work is ~zero.
-            # the reference loop index runs i = -1 … max_iters-1 (done fires
-            # on incoming i == max_iters-1), i.e. max_iters+1 evaluations
-            carry = carry0
-            for _ in range(max_iters + 1):
-                new = body(carry)
-                was_done = carry["done"]
-                keep = lambda old, nxt: jax.tree_util.tree_map(
-                    lambda a, b: jnp.where(was_done, a, b), old, nxt)
-                carry = {
-                    "x": keep(carry["x"], new["x"]),
-                    "P": jnp.where(was_done, carry["P"], new["P"]),
-                    "t": jnp.where(was_done, carry["t"], new["t"]),
-                    "i": jnp.where(was_done, carry["i"], new["i"]),
-                    "done": was_done | new["done"],
-                    "g": jnp.where(was_done, carry["g"], new["g"]),
-                    "me": jnp.where(was_done, carry["me"], new["me"]),
-                }
-            out = carry
-        else:
-            out = jax.lax.while_loop(cond, body, carry0)
-        return out["x"], out["P"], out["i"] + 1, out["g"], out["me"]
+    if unroll:
+        # Unrolled masked iterations: the same math as the while_loop
+        # (tests/test_iekf.py: equal iteration counts, states to f64
+        # reassociation noise), but XLA schedules the whole chain as
+        # straight-line code — no per-iteration loop bookkeeping.  With
+        # MAX_NUM_ITERS=3 and the two-converged-iterations stop rule the
+        # loop almost always runs to max anyway, so the masked extra work
+        # is ~zero.  The reference loop index runs i = -1 … max_iters-1
+        # (done fires on incoming i == max_iters-1), i.e. max_iters+1
+        # evaluations.
+        out = carry0
+        for _ in range(max_iters + 1):
+            new = body(out)
+            was_done = out["done"]
+            out = jax.tree_util.tree_map(
+                lambda a, b: jnp.where(was_done, a, b), out, new)
+            out["done"] = was_done | new["done"]
+    else:
+        out = jax.lax.while_loop(cond, body, carry0)
 
-    def diag(g_o, me_o, fb):
-        return {"gersh_min": g_o, "min_eig": me_o, "guard_fired": me_o < D,
-                "loop_fallback": fb}
-
-    if not use_loop_kernel:
-        x_o, P_o, n_o, g_o, me_o = run_loop()
-        if with_diag:
-            return x_o, P_o, n_o, diag(g_o, me_o, jnp.asarray(False))
-        return x_o, P_o, n_o
-
-    from fast_limo_tpu.ops import update_loop
-
-    xk, Pk, nit_k, ok, g_k, me_k = update_loop.update_loop_tpu(
-        loop_pack, P_prop, x_prop, R, D, limit, max_iters=max_iters,
-        estimate_extrinsics=h_model.loop_extrinsics,
-        window=getattr(h_model, "loop_window", None))
-    x_o, P_o, n_o, g_o, me_o = jax.lax.cond(
-        ok, lambda: (xk, Pk, nit_k, g_k, me_k), run_loop)
+    x_o, P_o, n_o = out["x"], out["P"], out["i"] + 1
     if with_diag:
-        return x_o, P_o, n_o, diag(g_o, me_o, ~ok)
+        me_o = out["me"]
+        return x_o, P_o, n_o, {"gersh_min": out["g"], "min_eig": me_o,
+                               "guard_fired": me_o < D}
     return x_o, P_o, n_o

@@ -1,7 +1,8 @@
-"""Incremental voxel-hash map — the TPU-native equivalent of the reference's
-incremental octree (`include/fast_limo/Objects/Octree.hpp`).
+"""Incremental voxel-hash map — the array-program equivalent of the
+reference's incremental octree (`include/fast_limo/Objects/Octree.hpp`).
 
-The octree's pointer-chasing kNN cannot map to TPU; instead the map is a
+The octree's pointer-chasing kNN does not map to fixed-shape array code;
+instead the map is a
 fixed-capacity **block-addressed** hash table of voxel entries, laid out so
 the entire lookup is ONE wide-row gather and the entire insert is ONE gather
 + ONE scatter:
@@ -31,9 +32,10 @@ where a voxel-hashed group spends 7/8 of its row on hash-arbitrary voxels.
 This retires the round-1..3 ``knn_neighborhood`` speed/accuracy knob: the
 exact path IS the fast path (the 4/8/27 values are accepted and ignored).
 
-Why: on TPU, gather/scatter cost is per *operation* + per *row* and nearly
-independent of row width (measured v5e: `tools/bench_gather2.py`,
-`tools/bench_blockrows.py`).  Collision handling is soft: a group
+Wide rows were chosen because gather/scatter cost on the accelerator the
+design was first tuned for was per *operation* + per *row* and nearly
+independent of row width; whether the layout suits coalesced GPU loads is
+an open question (ROADMAP).  Collision handling is soft: a group
 overflowing ROW_E distinct voxels (i.e. the blocks hashing there hold more
 than 16 occupied voxels TOTAL — surfaces occupy ~4 of a block's 8 voxels,
 so one group comfortably fits two colliding blocks) rejects newcomers,
@@ -51,9 +53,8 @@ stored voxel lies in a wanted block, and take the k smallest squared
 distances (Octree.hpp:527-598 contract: ascending sq-dists; coverage
 guarantee radius = ``voxel_size``, same as the 27-cube, from a 4³ superset).
 It is split into `gather_rows` (block-row gather — depends only on the
-query VOXELS) and `topk_from_candidates` / the fused kernel
-(ops/knn_rows.py) so the iterated update can hoist the gather out of its
-re-match loop.
+query VOXELS) and `topk_from_candidates` so the iterated update can hoist
+the gather out of its re-match loop.
 
 Sharded mode (num_shards > 1): a block's owner device is the high bits of
 its global group hash; groups are device-local by construction.
@@ -67,13 +68,12 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-E = 16       # entries per PLANAR subgroup (planarize / kernel decode unit)
-SUB = 1      # planar subgroups per hash-group row.  Plane-major across the
-             # WHOLE row (round 4): the kNN kernel's decode slices are then
-             # 16-lane meta / 96-lane coordinate planes instead of 8/48 —
-             # half the op count at twice the lane utilization (the decode
-             # was ~35% of a 1.76 ms kernel; ops on sub-128-lane tiles pay
-             # full fixed cost for a fraction of the vector width)
+from fast_limo_tpu.ops import sort as psort
+
+E = 16       # entries per PLANAR subgroup (planarize / decode unit)
+SUB = 1      # planar subgroups per hash-group row: plane-major across the
+             # WHOLE row, so the kNN decode reads 16-lane meta / 96-lane
+             # coordinate planes
 ROW_E = E * SUB  # voxel entries per hash group (free-election associativity)
 
 _BLOCK_CORNERS = jnp.array(
@@ -116,14 +116,10 @@ class VoxelHashMap(NamedTuple):
     ``ptable`` is the PLANAR mirror of the same data — the layout kNN wants:
     per planar subgroup of E entries, the voxel coords / counts / per-slot
     point coordinates each occupy contiguous lane planes, so the lookup
-    kernel (ops/knn_rows.py) decodes a gathered row with static contiguous
-    slices (entry-major rows need either per-lane register columns, which
-    blow the VMEM stack, or one-hot selector matmuls, which burn ~1 ms of
-    f32 MXU per scan — both measured).  Since round 4 the mirror is
-    plane-major across the WHOLE row (SUB=1: one planar subgroup of
-    E=ROW_E entries), so the kernel's decode slices are full 16/96-lane
-    planes; the planarize permutation is the same (E·EW → sub_width)
-    matmul, applied at (G·SUB) rows.
+    (`cands_from_rows`) decodes a gathered row with static contiguous
+    slices.  The mirror is plane-major across the WHOLE row (SUB=1: one
+    planar subgroup of E=ROW_E entries); the planarize permutation is one
+    (E·EW → sub_width) matmul, applied at (G·SUB) rows.
     """
 
     table: jnp.ndarray       # (G, W) float32 entry-major rows
@@ -201,11 +197,11 @@ def _planarize(table, bucket: int):
     """Rebuild the planar mirror from the entry-major table.
 
     A pure lane permutation per planar subgroup, done as ONE one-hot matmul
-    (G·SUB, E·EW)·(E·EW, sub_width) on the MXU — exact (each output lane is
-    a single 1.0·value MAC), scatter-free, and immune to the
-    write-collision / stale-lane subtleties an incremental mirror would
-    have.  Runs once per insert batch; cost is O(G), ~0.12 ms at the bench
-    table (2^13 groups × 448 lanes).
+    (G·SUB, E·EW)·(E·EW, sub_width) — exact (each output lane is a single
+    1.0·value MAC, at the float32 matmul precision the package pins),
+    scatter-free, and immune to the write-collision / stale-lane
+    subtleties an incremental mirror would have.  Runs once per insert
+    batch; cost is O(G).
     """
     B = bucket
     EW = _entry_width(B)
@@ -261,9 +257,8 @@ def _group_rows(m: VoxelHashMap, g, nc):
 
     g (...,) group ids, nc (...,3) voxel coords →
     (entries (...,ROW_E,EW), match (...,ROW_E) bool, counts (...,ROW_E) f32)
-    from ONE row gather.  Gathers FULL rows and slices in-register: a mixed-
-    index sub-row gather lowers to a pathological per-element path (~10×
-    slower, measured on v5e — tools/bench_insert.py).
+    from ONE row gather.  Gathers FULL rows and slices afterwards: one
+    row gather instead of a mixed-index sub-row gather.
     """
     ent = m.table[g].reshape(*g.shape, ROW_E, _entry_width(m.bucket))
     coords = ent[..., :3]                                # (...,ROW_E,3) f32
@@ -338,15 +333,10 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float, probes: int = 0,
     packed = (((vc0[:, 0] & 0x3FF) << 20)
               | ((vc0[:, 1] & 0x3FF) << 10)
               | (vc0[:, 2] & 0x3FF))
-    # single-launch bitonic sort on TPU (ops/sort.py); the arange operand
-    # totalizes the order → bit-identical to the stable 2-key XLA sort
-    from fast_limo_tpu.ops import sort as psort
-
+    # stable 2-key sort; the arange operand carries the permutation
     _, _, order = psort.sort3(key_g, packed, jnp.arange(N, dtype=jnp.int32))
-    # apply the permutation with ONE row gather: gather cost on TPU is
-    # per-ROW, width-independent, and five separate [order] gathers were
-    # ~0.2 ms each (the dominant insert cost after the resolve gather —
-    # tools/profile_insert_stages.py).  All packed lanes are exactly
+    # apply the permutation with ONE row gather instead of five separate
+    # [order] gathers.  All packed lanes are exactly
     # representable in f32 (|voxel coord| < 2²⁴, g0 < G ≤ 2²⁴ asserted in
     # create(), valid ∈ {0,1}).
     fused = jnp.concatenate(
@@ -410,9 +400,9 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float, probes: int = 0,
     new_ok = jnp.stack(conts, axis=1)                        # (N,B)
 
     # slot s takes new point (s - base) when that run point exists.  Select
-    # chains, NOT einsums: the one-hot contractions here are N batched
-    # (B,B)x(B,4) / (ROW_E)x(ROW_E,4B) matmuls — pathological MXU shapes
-    # that measured +0.4 ms at bench N; B selects on (N,B,4) are VPU noise.
+    # chains, NOT einsums: the one-hot contractions here would be N batched
+    # (B,B)x(B,4) / (ROW_E)x(ROW_E,4B) matmuls; B selects on (N,B,4) are
+    # plain elementwise work.
     s_idx = jnp.arange(B, dtype=jnp.int32)
     j_of_s = s_idx[None, :] - base[:, None]                  # (N,B) offsets
     use_new = jnp.zeros((N, B), bool)
@@ -435,8 +425,7 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float, probes: int = 0,
 
     # ---- ONE entry-block scatter (leaders only; coords stored as exact f32
     # VALUES, never bitcast: XLA does not preserve int bit patterns through
-    # f32 ops — denormal flush / NaN canonicalization, measured on both
-    # CPU and TPU backends) ----
+    # f32 ops — denormal flush / NaN canonicalization) ----
     writer = is_leader & resolved
     # non-writers get DISTINCT out-of-bounds rows (dropped) so every index
     # is unique and XLA can take the no-collision scatter lowering
@@ -465,9 +454,8 @@ def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float,
 
     Returns ``(rows (N,V,WP) f32, ncb (N,V,3) int32 block coords,
     owned (N,V) bool|None)``.  This is the only HBM-heavy part of the
-    lookup (per-row gather cost); block matching / distances / top-k run
-    either fused in one Pallas kernel (ops/knn_rows.py, TPU) or via the
-    jnp chain (``cands_from_rows``).
+    lookup; block matching / distances / top-k run in
+    ``cands_from_rows`` + ``topk_from_candidates``.
 
     ``neighborhood``: values 4/8/27 — the retired voxel-hashed knobs — all
     resolve to the exact 8-block gather (full 27-voxel-cube coverage; the
@@ -559,19 +547,14 @@ def gather_neighborhood(m: VoxelHashMap, queries, *, voxel_size: float,
 
 @functools.partial(jax.jit, static_argnames=("k",))
 def topk_from_candidates(cand_pts, cand_valid, queries, *, k: int):
-    """k smallest squared distances among the candidate buckets (ascending).
+    """k smallest squared distances among the candidate buckets.
 
-    On TPU this runs the fused Pallas distance+k-min kernel (ops/knn.py,
-    ~2× faster than ``lax.top_k`` which sorts the whole candidate row);
-    other backends use the identical-semantics jnp path.
+    Returns ``(nbrs (N,k,3), sq (N,k) ascending with +inf pads,
+    valid (N,k))``.
     """
     N = queries.shape[0]
     flat_pts = cand_pts.reshape(N, -1, 3)
     flat_valid = cand_valid.reshape(N, -1)
-    from fast_limo_tpu.ops import dispatch
-    if dispatch.kernel_enabled("knn"):
-        from fast_limo_tpu.ops import knn as knn_op
-        return knn_op.masked_topk(flat_pts, flat_valid, queries, k=k)
     diff = flat_pts - queries[:, None, :]
     d2 = jnp.sum(diff * diff, axis=-1)
     d2 = jnp.where(flat_valid, d2, jnp.inf)
@@ -677,15 +660,9 @@ def radius_search(m: VoxelHashMap, queries, radius: float, *,
 def knn(m: VoxelHashMap, queries, *, voxel_size: float, k: int, probes: int = 0,
         num_shards: int = 1, shard_index=0, neighborhood: int = 8
         ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Bounded kNN over the block neighborhood (gather + fused select/top-k)."""
+    """Bounded kNN over the block neighborhood (gather + select/top-k)."""
     rows, ncb, owned = gather_rows(
         m, queries, voxel_size=voxel_size, num_shards=num_shards,
         shard_index=shard_index, neighborhood=neighborhood)
-    from fast_limo_tpu.ops import dispatch
-    if owned is None and dispatch.kernel_enabled("knn"):
-        from fast_limo_tpu.ops import knn_rows
-
-        return knn_rows.topk_from_rows_tpu(rows, ncb, queries, E=E,
-                                           B=m.bucket, k=k)
     cand_pts, cand_valid = cands_from_rows(rows, ncb, owned, m.bucket)
     return topk_from_candidates(cand_pts, cand_valid, queries, k=k)

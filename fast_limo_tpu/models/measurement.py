@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from fast_limo_tpu.models import mapper as mp
@@ -31,6 +32,105 @@ def window_size(k: int) -> int:
     """Frozen re-match WINDOW per query (single source: the sharded comm
     model and the loop kernel pack both key on it)."""
     return k + 7
+
+
+class FrozenWindow(NamedTuple):
+    """Per-query top-W candidate window, resolved once at the predicted pose
+    (``glob0``), plus what the staleness certificates need."""
+
+    glob0: jnp.ndarray      # (N,3) query points at the predicted pose
+    nbrs: jnp.ndarray       # (N,W,3) window candidates
+    valid: jnp.ndarray      # (N,W)
+    cnt: jnp.ndarray        # (N,) valid candidates (< W: the whole cube)
+    d_wmax: jnp.ndarray     # (N,) W-th distance at glob0 (+inf if partial)
+    b0: jnp.ndarray         # (N,3) int32 frozen base block of the gather
+    band_lo: jnp.ndarray    # (N,3) world extent of the frozen b0 band
+    band_hi: jnp.ndarray    # (N,3)
+
+
+def freeze_window(glob0, nbrs_w, sq_w, vld_w,
+                  voxel_size: float) -> FrozenWindow:
+    """Window from a top-W kNN resolve at ``glob0``: candidates ``nbrs_w``
+    (N,W,3) with ascending squared distances ``sq_w`` (N,W) and validity
+    ``vld_w`` (N,W)."""
+    W = nbrs_w.shape[1]
+    cnt = jnp.sum(vld_w, axis=-1)
+    d_wmax = jnp.where(cnt >= W, jnp.sqrt(sq_w[:, W - 1]), jnp.inf)
+    b0 = (mp.voxel_coords(glob0, voxel_size) - 1) >> 1
+    band_lo = (b0 * 2 + 1).astype(glob0.dtype) * voxel_size
+    return FrozenWindow(glob0, nbrs_w, vld_w, cnt, d_wmax, b0, band_lo,
+                        band_lo + 2.0 * voxel_size)
+
+
+def window_rank(win: FrozenWindow, glob, k: int):
+    """Exact top-k over the frozen window at the current query points.
+
+    Returns ``(sel_nbrs (N,k,3), sel_sq (N,k) ascending, +inf pads)``."""
+    diff = glob[:, None, :] - win.nbrs                    # (N,W,3)
+    d2 = jnp.where(win.valid, jnp.sum(diff * diff, -1), jnp.inf)
+    neg, order = jax.lax.top_k(-d2, k)
+    sel_nbrs = jnp.take_along_axis(win.nbrs, order[..., None], axis=1)
+    return sel_nbrs, -neg
+
+
+def stale_mask(win: FrozenWindow, glob, sel_sq, pc_valid, k: int,
+               voxel_size: float):
+    """Per-query certificate FAILURES: could a full re-match at ``glob``
+    return a different candidate set than the window re-rank?
+
+    cert_a (outside-window entry): every non-window candidate of the frozen
+    cube had distance ≥ d_W at glob0, hence ≥ d_W − Δ now (Δ = the query's
+    displacement); the selected k-th must beat that.  A partial window
+    (cnt < W) holds the WHOLE cube — nothing outside.  cert_b (block
+    crossing): if the query left its frozen b0 band by δ, the frozen cube
+    still covers radius voxel_size − δ around it (gather_rows coverage
+    guarantee) — candidates revealed by the new cube are farther than that.
+    A query whose b0 is unchanged sees the identical cube (no cert_b
+    needed)."""
+    W = win.nbrs.shape[1]
+    kth_d = jnp.sqrt(sel_sq[:, k - 1])        # inf if < k candidates
+    delta = jnp.linalg.norm(glob - win.glob0, axis=-1)
+    cert_a = (win.cnt < W) | (kth_d < win.d_wmax - delta)
+    b0_same = jnp.all(
+        ((mp.voxel_coords(glob, voxel_size) - 1) >> 1) == win.b0, axis=-1)
+    leave = jnp.max(jnp.maximum(win.band_lo - glob, glob - win.band_hi),
+                    axis=-1)
+    cert_b = kth_d < voxel_size - jnp.maximum(leave, 0.0)
+    return pc_valid & ~(cert_a & (b0_same | cert_b))
+
+
+def jacobian_rows(pc, n_abcd, keep, x: st.NavState, estimate_extrinsics):
+    """Point-to-plane Jacobian rows and residuals (Localizer.cpp:537-577).
+
+    pc (N,3) baselink points, n_abcd (N,4) planes, keep (N,) →
+    ``(H (N,12), h (N,))`` with zero rows where ``keep`` is False.
+    """
+    dtype = pc.dtype
+    glob = so3.quat_rotate(x.rot, pc) + x.pos
+    dist = plane_op.point_to_plane(n_abcd, glob)
+    n = n_abcd[:, :3]                                     # (N,3)
+    # C = Rᵀ n ; A = p_imu × C ; B = p_lidar × (R_LIᵀ C)  (Localizer.cpp:549-569)
+    Rinv = so3.quat_to_mat(so3.quat_conj(x.rot))
+    C = n @ Rinv.T
+    A = jnp.cross(pc, C)                                  # RT⁻¹·global == local
+    if estimate_extrinsics:
+        RLIinv = so3.quat_to_mat(so3.quat_conj(x.rot_LI))
+        p_lidar = (pc - x.t_LI) @ RLIinv.T
+        B = jnp.cross(p_lidar, C @ RLIinv.T)
+        H = jnp.concatenate([n, A, B, C], axis=-1)        # (N,12)
+    else:
+        H = jnp.concatenate([n, A, jnp.zeros_like(n), jnp.zeros_like(n)],
+                            axis=-1)
+    H = jnp.where(keep[:, None], H, 0.0).astype(dtype)
+    h = jnp.where(keep, -dist, 0.0).astype(dtype)
+    return H, h
+
+
+def h_statistics(pc, n_abcd, keep, x: st.NavState, estimate_extrinsics):
+    """The measurement sufficient statistics ``(HᵀH (12,12), Hᵀh (12,))``
+    consumed by `iekf.update_iterated`."""
+    H, h = jacobian_rows(pc, n_abcd, keep, x, estimate_extrinsics)
+    return H.T @ H, H.T @ h
 
 
 def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
@@ -54,7 +154,7 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
 
     Parallelism (both optional, composable on a 2-D mesh):
     * ``shard_axis``: the map lives sharded by hash ownership; per-shard
-      kNN top-k candidates merge over ICI with ``all_gather``.
+      kNN top-k candidates merge across devices with ``all_gather``.
     * ``query_axis``: each device matches only its 1/num_query_shards slice
       of the queries; HᵀH/Hᵀh are ``psum``-reduced — linear throughput
       scaling of the gather/fit/Jacobian work.
@@ -84,8 +184,7 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
     re-gather (`lax.cond`), so the semantics never degrade; measured on
     the bench scene, ~80% of scans have ZERO stale queries and the rest
     single digits (tools/probe_stale_rate.py; DebugOutput.n_stale is the
-    live telemetry).  On TPU the whole iterated loop INCLUDING this window
-    re-match runs as one Pallas launch (ops/update_loop.py window mode).
+    live telemetry).
 
     ``with_debug=True`` additionally returns a third closure
     ``h_debug(x) -> (n_abcd (Nq,4), keep (Nq,), dist (Nq,), n_stale ())``
@@ -96,8 +195,6 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
     assert knn_refresh in ("always", "first")
 
     if query_axis is not None:
-        import jax
-
         Nq = pc.shape[0] // num_query_shards
         qidx = jax.lax.axis_index(query_axis)
         pc = jax.lax.dynamic_slice_in_dim(pc, qidx * Nq, Nq, axis=0)
@@ -108,32 +205,20 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
         if shard_axis is None:
             return mp.gather_rows(
                 m, glob, voxel_size=voxel_size, neighborhood=neighborhood)
-        import jax
-
         idx = jax.lax.axis_index(shard_axis)
         return mp.gather_rows(
             m, glob, voxel_size=voxel_size, num_shards=num_shards,
             shard_index=idx, neighborhood=neighborhood)
 
     def _topk(gathered, glob, kk=k):
-        from fast_limo_tpu.ops import dispatch
-
         rows, nc, owned = gathered
-        if owned is None and dispatch.kernel_enabled("knn"):
-            # fused entry-match + distance + k-min (ops/knn_rows.py)
-            from fast_limo_tpu.ops import knn_rows
-
-            return knn_rows.topk_from_rows_tpu(rows, nc, glob, E=mp.E,
-                                               B=m.bucket, k=kk)
         cand_pts, cand_valid = mp.cands_from_rows(rows, nc, owned, m.bucket)
         nbrs, sq, vld = mp.topk_from_candidates(cand_pts, cand_valid, glob,
                                                 k=kk)
         if shard_axis is None:
             return nbrs, sq, vld
-        # map-sharded: per-shard top-k candidates ride ICI (all_gather) and
-        # re-merge into the global k nearest — identical to single-chip.
-        import jax
-
+        # map-sharded: per-shard top-k candidates are all_gathered and
+        # re-merge into the global k nearest — identical to one device.
         nbrs_g = jax.lax.all_gather(nbrs, shard_axis)         # (D,N,kk,3)
         sq_g = jax.lax.all_gather(sq, shard_axis)             # (D,N,kk)
         N = glob.shape[0]
@@ -157,8 +242,6 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
         def _means(w):
             s, n = jnp.sum(ad * w), jnp.sum(w)
             if query_axis is not None:
-                import jax
-
                 s = jax.lax.psum(s, query_axis)
                 n = jax.lax.psum(n, query_axis)
             return s / jnp.maximum(n, 1.0)
@@ -172,8 +255,6 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
         query sharding the cap needs the exclusive prefix of lower shards."""
         local_cum = jnp.cumsum(good.astype(jnp.int32))
         if query_axis is not None:
-            import jax
-
             totals = jax.lax.all_gather(local_cum[-1], query_axis)  # (D,)
             qidx = jax.lax.axis_index(query_axis)
             prefix = jnp.sum(jnp.where(
@@ -191,62 +272,19 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
         good = _dyn_gate(good & pc_valid, n_abcd, glob)
         return n_abcd, _cap(good)
 
-    from fast_limo_tpu.ops import dispatch
-
-    use_kernel = (dispatch.kernel_enabled("hstats") and pc.dtype == jnp.float32)
-
     # ---- ONE frozen resolve at the predicted pose (see docstring) ----
     assert x0 is not None, "make_h_model needs the predicted pose x0"
-    import jax
-
-    W = window_size(k)   # candidate WINDOW per query: the re-rank is
-                # EXACT inside the window (true distances, refit), so ties
-                # and near-boundary reorderings cost nothing; only a
-                # candidate from OUTSIDE the window entering the top-k (gap
-                # d_W − d_k, rarely < the iterate's displacement) or a
-                # sparse-region block crossing marks a query stale.  k+7:
-                # at k+3 the d_W−d_k gap still lost the certificate on
-                # ~half the bench scans (1-5 near-tie queries of 10k, TPU
-                # replay probe); the deeper window costs ~4 extra k-min
-                # extraction passes in the resolve and widens the gap to
-                # rarely-beaten range
+    # Candidate WINDOW per query: the re-rank is EXACT inside the window
+    # (true distances, refit), so ties and near-boundary reorderings cost
+    # nothing; only a candidate from OUTSIDE the window entering the top-k
+    # (gap d_W − d_k, rarely < the iterate's displacement) or a
+    # sparse-region block crossing marks a query stale.  At k+3 the
+    # d_W − d_k gap still lost the certificate on about half the bench scans
+    # (1-5 near-tie queries of 10k); k+7 widens it to rarely-beaten range.
+    W = window_size(k)
     glob0 = so3.quat_rotate(x0.rot, pc) + x0.pos
-    nbrs_w, sq_w, vld_w = _topk(_gather(glob0), glob0, kk=W)
-    cnt_w = jnp.sum(vld_w, axis=-1)
-    d_wmax = jnp.where(cnt_w >= W, jnp.sqrt(sq_w[:, W - 1]), jnp.inf)
-    b0_frozen = (mp.voxel_coords(glob0, voxel_size) - 1) >> 1
-    band_lo = (b0_frozen * 2 + 1).astype(glob0.dtype) * voxel_size
-    band_hi = band_lo + 2.0 * voxel_size
-
-    def _window_rank(glob):
-        """Exact top-k over the frozen window at the current pose."""
-        diff = glob[:, None, :] - nbrs_w                  # (N,W,3)
-        d2 = jnp.where(vld_w, jnp.sum(diff * diff, -1), jnp.inf)
-        neg, order = jax.lax.top_k(-d2, k)
-        sel_sq = -neg                                     # (N,k) ascending
-        sel_nbrs = jnp.take_along_axis(nbrs_w, order[..., None], axis=1)
-        return sel_nbrs, sel_sq
-
-    def _stale_mask(glob, sel_sq):
-        """Per-query certificate FAILURES: could a full re-match at ``glob``
-        return a different candidate set than the window re-rank?
-
-        cert_a (outside-window entry): every non-window candidate of the
-        frozen cube had distance ≥ d_W at x0, hence ≥ d_W − Δ now; the
-        selected k-th must beat that.  cert_b (block crossing): if the
-        query left its frozen b0 band by δ, the frozen cube still covers
-        radius voxel_size − δ around it (gather_rows coverage guarantee) —
-        candidates revealed by the new cube are farther than that.  A query
-        whose b0 is unchanged sees the identical cube (no cert_b needed)."""
-        kth_d = jnp.sqrt(sel_sq[:, k - 1])        # inf if < k candidates
-        delta = jnp.linalg.norm(glob - glob0, axis=-1)
-        cert_a = (cnt_w < W) | (kth_d < d_wmax - delta)
-        b0_same = jnp.all(
-            ((mp.voxel_coords(glob, voxel_size) - 1) >> 1) == b0_frozen,
-            axis=-1)
-        leave = jnp.max(jnp.maximum(band_lo - glob, glob - band_hi), axis=-1)
-        cert_b = kth_d < voxel_size - jnp.maximum(leave, 0.0)
-        return pc_valid & ~(cert_a & (b0_same | cert_b))
+    win = freeze_window(glob0, *_topk(_gather(glob0), glob0, kk=W),
+                        voxel_size=voxel_size)
 
     # the patch budget cannot exceed the (per-shard) query count — top_k
     # with k > axis size is a trace-time error, and BOTH cond branches are
@@ -291,10 +329,10 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
 
     def _rematch(glob):
         """Per-iteration exact re-match: window fast path; the rare
-        certificate failures (see _stale_mask) patch just the stale
+        certificate failures (see stale_mask) patch just the stale
         queries; a full re-gather only when they exceed the budget."""
-        ranked = _window_rank(glob)
-        stale = _stale_mask(glob, ranked[1])
+        ranked = window_rank(win, glob, k)
+        stale = stale_mask(win, glob, ranked[1], pc_valid, k, voxel_size)
         # dtype pinned: under x64 test mode jnp.sum would promote to int64
         # and double the certificate psum's wire size (comm_volume models 4 B)
         local_viol = jnp.sum(stale.astype(jnp.int32), dtype=jnp.int32)
@@ -317,74 +355,18 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
             (glob, ranked, stale))
 
     def h_rows(x: st.NavState):
-        dtype = pc.dtype
         # world-frame query points under the current iterate (Mapper.cpp:71-72)
         glob = so3.quat_rotate(x.rot, pc) + x.pos
         n_abcd, keep = _rematch(glob)
-        dist = plane_op.point_to_plane(n_abcd, glob)
-
-        n = n_abcd[:, :3]                                     # (N,3)
-        # C = Rᵀ n ; A = p_imu × C ; B = p_lidar × (R_LIᵀ C)  (Localizer.cpp:549-569)
-        Rinv = so3.quat_to_mat(so3.quat_conj(x.rot))
-        C = n @ Rinv.T
-        p_imu = pc                                            # RT⁻¹·global == local
-        A = jnp.cross(p_imu, C)
-        RLIinv = so3.quat_to_mat(so3.quat_conj(x.rot_LI))
-        p_lidar = (p_imu - x.t_LI) @ RLIinv.T
-        B = jnp.cross(p_lidar, C @ RLIinv.T)
-
-        if estimate_extrinsics:
-            H = jnp.concatenate([n, A, B, C], axis=-1)        # (N,12)
-        else:
-            H = jnp.concatenate([n, A, jnp.zeros_like(B), jnp.zeros_like(C)], axis=-1)
-
-        H = jnp.where(keep[:, None], H, 0.0).astype(dtype)
-        h = jnp.where(keep, -dist, 0.0).astype(dtype)
-        return H, h
+        return jacobian_rows(pc, n_abcd, keep, x, estimate_extrinsics)
 
     def h_stats(x: st.NavState):
-        if use_kernel:
-            # whole per-iteration chain (world transform, residuals, H rows,
-            # HᵀH/Hᵀh) as ONE Pallas launch — ops/hstats.py
-            from fast_limo_tpu.ops import hstats as hstats_op
-
-            glob = so3.quat_rotate(x.rot, pc) + x.pos
-            n_abcd, keep = _rematch(glob)
-            X = hstats_op.pack_inputs(pc, n_abcd, keep)
-            HTH, HTh = hstats_op.hstats_tpu(
-                X, hstats_op.pack_scalars(x),
-                estimate_extrinsics=estimate_extrinsics)
-        else:
-            H, h = h_rows(x)
-            HTH, HTh = H.T @ H, H.T @ h
+        H, h = h_rows(x)
+        HTH, HTh = H.T @ H, H.T @ h
         if query_axis is not None:
-            import jax
-
             HTH = jax.lax.psum(HTH, query_axis)
             HTh = jax.lax.psum(HTh, query_axis)
         return HTH, HTh
-
-    if use_kernel and query_axis is None:
-        # Expose the frozen WINDOW pack so iekf.update_iterated can run the
-        # WHOLE masked iteration loop — including the per-iteration exact
-        # window re-match (re-rank, refit, gates, cap) — as one Pallas
-        # launch (ops/update_loop.py).  The kernel evaluates the same
-        # per-query staleness certificates as _stale_mask; any violation
-        # makes it report ok=False and the caller re-runs the exact
-        # per-iteration loop (whose own fallback re-gathers).  With query
-        # sharding the HᵀH psum must stay outside the kernel, so the
-        # per-iteration path is kept there.
-        from fast_limo_tpu.ops import update_loop as ul_op
-
-        h_stats.loop_pack = ul_op.pack_window(pc, pc_valid, nbrs_w, vld_w,
-                                              cnt_w)
-        h_stats.loop_window = ul_op.Window(
-            k=k, W=W, voxel_size=float(voxel_size),
-            max_dist_plane=float(max_dist_plane),
-            plane_threshold=float(plane_threshold),
-            max_num_matches=int(max_num_matches),
-            dynamic_gate=float(dynamic_gate))
-        h_stats.loop_extrinsics = estimate_extrinsics
 
     if not with_debug:
         return h_rows, h_stats
@@ -394,19 +376,18 @@ def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, *,
         n_abcd, keep = _rematch(glob)
         dist = plane_op.point_to_plane(n_abcd, glob)
         # staleness telemetry at this iterate: how many queries' window
-        # certificates fail (each forces the exact re-gather path / the
-        # loop kernel's fallback) — observability for the re-match design
-        _sel, sel_sq = _window_rank(glob)
-        n_stale = jnp.sum(_stale_mask(glob, sel_sq).astype(jnp.int32),
-                          dtype=jnp.int32)
+        # certificates fail (each forces the exact re-gather path) —
+        # observability for the re-match design
+        _sel, sel_sq = window_rank(win, glob, k)
+        n_stale = jnp.sum(
+            stale_mask(win, glob, sel_sq, pc_valid, k, voxel_size).astype(
+                jnp.int32), dtype=jnp.int32)
         if query_axis is not None:
             # pc was sliced to this device's query shard above, so the match
             # leaves are shard-local — but DebugOutput is declared replicated
             # in the sharded step's out_specs.  Reassemble the full query
             # axis (shards were contiguous slices, so concatenation in
             # shard order restores the original point order).
-            import jax
-
             def unshard(a):
                 g = jax.lax.all_gather(a, query_axis)     # (D, Nq, ...)
                 return g.reshape((-1,) + g.shape[2:])

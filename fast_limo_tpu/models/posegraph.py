@@ -1,10 +1,10 @@
 """SE(3) pose-graph optimization.
 
 Advertised by the reference's loop-closure branch (GTSAM-based, not in the
-snapshot — README.md:152-159); rebuilt here TPU-first: fixed-capacity node
-and edge stores, per-edge residuals/Jacobians batched with vmap + autodiff,
-and a DENSE 6K×6K Gauss-Newton normal-equations solve — at K ≤ 1024 nodes a
-dense Cholesky on the MXU beats sparse scalar pivoting by a mile on TPU.
+snapshot — README.md:152-159); rebuilt here as array programs: fixed-capacity
+node and edge stores, per-edge residuals/Jacobians batched with vmap +
+autodiff, and a DENSE 6K×6K Gauss-Newton normal-equations solve for small
+graphs (a chain-preconditioned PCG for large ones, see `optimize`).
 
 Edge residual (factor): r = log_se3(T_meas⁻¹ · T_i⁻¹ · T_j), 6-dim; node
 update is right-multiplicative (T ← T·exp(δ)).  Gauge fixed by node 0.
@@ -355,24 +355,23 @@ def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
     odometry/loop edge saturates instead of dragging the chain.
     ``robust_delta_priors`` is the same for the position priors.
 
-    ``solver``: "dense" (6K×6K normal equations on the MXU — right on TPU
-    and for small graphs), "chain" (block-tridiagonal-preconditioned PCG —
-    `_chain_solve`; O(K) per iteration, the CPU path to the K=1024
-    keyframe cap), or "auto" (chain when the node capacity exceeds 128 on
-    a non-TPU backend).
+    ``solver``: "dense" (6K×6K normal equations — right for small
+    graphs), "chain" (block-tridiagonal-preconditioned PCG —
+    `_chain_solve`; O(K) per iteration, the path to the K=1024 keyframe
+    cap), or "auto" (chain when the node capacity exceeds 128, chosen by
+    size alone).
 
     ``edge_axis``: when running under `shard_map` with the EDGE arrays
     sharded over a mesh axis (nodes replicated), each device accumulates the
     normal equations for its edge slice and the dense H/b are psum-reduced
-    over ICI before the (replicated) solve — the distributed pose-graph
+    across devices before the (replicated) solve — the distributed pose-graph
     factor reduction of the north star.  Forces the dense path.
     """
     K = g.quat.shape[0]
     dtype = g.quat.dtype
     zero6 = jnp.zeros(6, dtype)
     if solver == "auto":
-        use_chain = (K > 128 and edge_axis is None
-                     and jax.default_backend() != "tpu")
+        use_chain = K > 128 and edge_axis is None
     else:
         use_chain = solver == "chain" and edge_axis is None
 
@@ -467,7 +466,7 @@ def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
 
             Hd = H.reshape(6 * K, 6 * K)
             bd = b.reshape(6 * K)
-            if edge_axis is not None:  # reduce sharded edge factors over ICI
+            if edge_axis is not None:  # reduce sharded edge factors across devices
                 Hd = jax.lax.psum(Hd, edge_axis)
                 bd = jax.lax.psum(bd, edge_axis)
             Hd = Hd + Hp.reshape(6 * K, 6 * K)
@@ -512,7 +511,7 @@ def optimize_distributed(g: PoseGraph, mesh, *, iters: int = 10,
     """Pose-graph GN with edge factors sharded across the mesh.
 
     Nodes are replicated; each device computes residuals/Jacobians for its
-    slice of the edge arrays and the dense normal equations psum over ICI.
+    slice of the edge arrays and the dense normal equations psum across devices.
     Edge count must be divisible by the mesh axis size.
     """
     from jax.sharding import PartitionSpec as P

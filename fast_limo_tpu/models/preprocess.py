@@ -50,8 +50,7 @@ def preprocess_scan(points, t_raw, valid, scan_stamp, imu_stamp, *,
     per-point time masks, the voxel downsample re-sorts by voxel key and
     averages (so the pc2match/insert SETS are unchanged), and the
     jnp-deskew ``searchsorted`` needs sorted FRAME times, not points.
-    The 32k argsort + permute costs ~0.6 ms/scan on the v5e — the sort is
-    an artifact of the reference's sequential loop, not of its semantics;
+    The 32k argsort + permute is an artifact of the reference's sequential loop, not of its semantics;
     results differ only in f32 summation association inside voxel
     centroids.  ``last_t`` comes from a masked max instead of the sorted
     tail (identical value).

@@ -2,9 +2,9 @@
 
 The reference advertises ScanContext loop closure on its `loop/scancontext`
 branch (README.md:34, 152-159) — not present in the snapshot — so this is a
-from-paper, TPU-first implementation: descriptors are polar occupancy-height
-images built with scatter-max (VPU), and matching is correlation over sector
-shifts expressed as batched matmuls (MXU) rather than per-shift loops.
+from-paper array-program implementation: descriptors are polar
+occupancy-height images built with scatter-max, and matching is correlation
+over sector shifts expressed as batched matmuls rather than per-shift loops.
 
 Descriptor: R rings × S sectors; cell = max z of points in the cell.
 Ring-key: per-ring occupancy ratio (rotation invariant) for fast candidate
@@ -78,7 +78,7 @@ def distance(d1, d2):
     """ScanContext distance: min over all sector shifts of 1 − colwise cos.
 
     Returns (dist, best_shift). Vectorized over shifts with vmap; the inner
-    products batch onto the MXU.
+    products batch into matmuls.
     """
     S = d1.shape[1]
 

@@ -2,7 +2,7 @@
 
 The reference ships this only on its out-of-snapshot branches
 (`loop/scancontext`: ScanContext + GTSAM + GPS factors, README.md:152-159);
-here it is built from the papers, TPU-first:
+here it is built from the papers, as device-side array programs:
 
 * keyframes capture each scan's OWN device-side outputs (pose + body-frame
   cloud), lagged one scan behind dispatch so reads never sync the step in

@@ -29,7 +29,7 @@ form (``n·p + D = n·(p−c)``), all arithmetic is conditioned on the
 neighbor SPREAD (f32 matches f64 to rounding — tests/test_e2e_oracle.py),
 and the fit is well-defined for every plane pose.  The 3×3 symmetric
 eigenproblem is solved in closed form (trigonometric) and fully
-vectorized — no LAPACK loops, VPU-friendly.
+vectorized — elementwise work that XLA fuses, with no solver calls.
 
 One additional gate the reference lacks: the MIDDLE eigenvalue must exceed
 ``n_valid · PLANE_THRESHOLD²`` — a genuine planar patch must extend beyond
@@ -110,20 +110,6 @@ def fit_planes(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
     invariant to the per-row sign anyway: flipping (n, d) flips both the H
     row and the residual h).
     """
-    from fast_limo_tpu.ops import dispatch
-
-    if dispatch.kernel_enabled("plane") and nbrs.dtype == jnp.float32:
-        # whole fit + gates as ONE Pallas launch (ops/plane_kernel.py);
-        # gated-out rows return zero coefficients there (consumers mask by
-        # ``good``, and zero rows contribute nothing to HᵀH)
-        from fast_limo_tpu.ops import plane_kernel
-
-        if plane_kernel._HAS_PALLAS:
-            return plane_kernel.fit_planes_tpu(
-                nbrs, sq_dists, nbr_valid, num_match_points=num_match_points,
-                max_dist_plane=float(max_dist_plane),
-                plane_threshold=float(plane_threshold))
-
     N, k, _ = nbrs.shape
     n_valid = jnp.sum(nbr_valid, axis=-1)
 

@@ -5,10 +5,10 @@ semantics mirror the MTK manifold toolkit used by the reference
 (`include/IKFoM/IKFoM_toolkit/mtk/types/SOn.hpp`,
 `mtk/src/mtkmath.hpp:143-256`), but are implemented as branch-free JAX
 functions (``jnp.where`` instead of data-dependent control flow) so they
-vectorize under ``vmap``/``jit`` and lower cleanly to the TPU VPU.
+vectorize under ``vmap``/``jit`` into fused elementwise code.
 
-All functions are dtype-polymorphic: pass float32 arrays on TPU, float64 on
-CPU for high-precision validation.
+All functions are dtype-polymorphic: pass float32 arrays on the device,
+float64 on the CPU for high-precision validation.
 """
 
 from __future__ import annotations

@@ -1,157 +1,24 @@
-"""Single-launch bitonic sort for the pipeline's key/payload sorts.
+"""Stable integer sorts of the pipeline's key/payload passes.
 
-MEASURED NEGATIVE RESULT (v5e, kept for the record): the hypothesis was
-that XLA's `lax.sort` on TPU — O(log²N) separate passes — is dominated by
-per-pass dispatch latency (~6 µs each ≈ 0.9 ms at N=10-16k), so running
-the whole network in ONE Pallas launch should approach the ~tens-of-µs
-data-movement bound.  The kernel below does exactly that (row-distance
-exchanges as static reshape/slice swaps, lane-distance exchanges via
-`pltpu.roll`, fully unrolled, bitwise-equal to XLA's stable sort on
-device) and lands at 0.810 ms vs XLA's 0.808 ms at N=10000: the cost is
-the intrinsic per-stage shuffle work (~7.7 µs per compare-exchange stage
-on (128,128) i32 tiles), NOT dispatch latency.  XLA's sort is already at
-that bound, so the kernel is DISABLED by default
-(`FAST_LIMO_SORT_KERNEL=1` opts in); `mapper.insert` /
-`ops/voxel.voxel_downsample` keep the XLA sort.  A future attempt should
-target the per-stage shuffle cost itself (e.g. transposing tiles once per
-bitonic round so the 7 lane-distance stages become row swaps).
-
-Semantics: `sort3_tpu(k1, k2, v)` sorts ascending by the lexicographic key
-``(k1, k2, v)``.  With a UNIQUE `v` (e.g. `arange`) the order is total, so
-the result is exactly XLA's stable `lax.sort((k1, k2, v), num_keys=2)` /
-`sort_key_val(k1, v)` (ties resolved by original index) — the callers'
-outputs are bit-identical (tests/test_sort.py).
-
-Shapes: N must be a multiple of 128; the wrapper pads to the next power of
-two with +inf keys (padding sorts last, then sliced off).
+`sort_key_val` groups voxel downsampling (ops/voxel.py) and `sort3` orders
+a map-insert batch by (hash group, packed voxel key) (models/mapper.py).
+Both are XLA's stable sort: ties keep their original order, so with an
+``arange`` payload the order is total and reproducible.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-_LANES = 128
-_I32_MAX = jnp.int32(0x7FFFFFFF)
-
-
-def _lex_less(a, b):
-    """(k1,k2,v) lexicographic less-than over element triples."""
-    (a1, a2, a3), (b1, b2, b3) = a, b
-    return (a1 < b1) | ((a1 == b1) & ((a2 < b2) | ((a2 == b2) & (a3 < b3))))
-
-
-def _sort_kernel(k1_ref, k2_ref, v_ref, o1_ref, o2_ref, o3_ref, *, N: int):
-    R = N // _LANES
-    arrs = [k1_ref[:, :], k2_ref[:, :], v_ref[:, :]]
-
-    rows = jax.lax.broadcasted_iota(jnp.int32, (R, _LANES), 0)
-    lanes = jax.lax.broadcasted_iota(jnp.int32, (R, _LANES), 1)
-    idx = rows * _LANES + lanes
-
-    def partner_of(x, j):
-        if j >= _LANES:
-            jr = j // _LANES
-            x4 = x.reshape(R // (2 * jr), 2, jr, _LANES)
-            sw = jnp.concatenate([x4[:, 1:2], x4[:, 0:1]], axis=1)
-            return sw.reshape(R, _LANES)
-        # lane exchange l ↔ l^j: low lanes read l+j, high lanes read l−j
-        # (pltpu.roll wants non-negative shifts; −j ≡ 128−j circularly)
-        low = (lanes & j) == 0
-        return jnp.where(low, pltpu.roll(x, _LANES - j, 1),
-                         pltpu.roll(x, j, 1))
-
-    k = 2
-    while k <= N:
-        kbit = (idx & k) >> k.bit_length() - 1        # i32 0/1
-        j = k >> 1
-        while j >= 1:
-            jbit = (idx & j) >> j.bit_length() - 1    # i32 0/1
-            # flip=1 on elements that keep the LARGER of the pair
-            flip = kbit ^ jbit
-            partners = [partner_of(x, j) for x in arrs]
-            self_less = _lex_less(tuple(arrs), tuple(partners))
-            # integer-domain comparator: Mosaic mis-lowers selects that
-            # RETURN i1 vectors (i8→i1 trunci crash), so the boolean
-            # algebra runs in i32 and only the final select is on i32
-            choose_self = self_less.astype(jnp.int32) ^ flip
-            arrs = [jnp.where(choose_self == 1, x, p)
-                    for x, p in zip(arrs, partners)]
-            j >>= 1
-        k <<= 1
-
-    o1_ref[:, :] = arrs[0]
-    o2_ref[:, :] = arrs[1]
-    o3_ref[:, :] = arrs[2]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def sort3_tpu(k1, k2, v, *, interpret: bool = False):
-    """Ascending lexicographic sort of int32 triples in ONE launch.
-
-    Equals stable ``lax.sort((k1, k2, v), num_keys=2)`` when ``v`` is
-    unique (total order).  Arbitrary N: pads to the next power-of-two
-    multiple of 128 with +inf keys.
-    """
-    N = k1.shape[0]
-    Np = _LANES
-    while Np < N:
-        Np <<= 1
-    pad = Np - N
-
-    def prep(x):
-        x = x.astype(jnp.int32)
-        if pad:
-            x = jnp.concatenate([x, jnp.full(pad, _I32_MAX, jnp.int32)])
-        return x.reshape(Np // _LANES, _LANES)
-
-    o1, o2, o3 = pl.pallas_call(
-        functools.partial(_sort_kernel, N=Np),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 3,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),) * 3,
-        out_shape=(jax.ShapeDtypeStruct((Np // _LANES, _LANES), jnp.int32),) * 3,
-        interpret=interpret,
-    )(prep(k1), prep(k2), prep(v))
-    return (o1.reshape(-1)[:N], o2.reshape(-1)[:N], o3.reshape(-1)[:N])
-
 
 def sort_key_val(key, val):
-    """Stable single-key sort (key asc, ties by original order when ``val``
-    is an arange).  Kernel path reuses the 3-operand bitonic network; the
-    default path is XLA's native ``sort_key_val`` (cheaper than a 2-key
-    variadic sort — no redundant third operand)."""
-    import os
-
-    from fast_limo_tpu.ops import dispatch
-
-    if (_HAS_PALLAS and os.environ.get("FAST_LIMO_SORT_KERNEL") == "1"
-            and dispatch.kernel_enabled("sort")):
-        k, _, v = sort3_tpu(key, val, val)
-        return k, v
+    """Stable single-key sort of int32 ``key`` carrying ``val``."""
     return jax.lax.sort_key_val(key.astype(jnp.int32), val.astype(jnp.int32))
 
 
 def sort3(k1, k2, v):
-    """Dispatch: stable lax.sort by default; the Pallas bitonic kernel only
-    with ``FAST_LIMO_SORT_KERNEL=1`` (measured at parity with XLA — see
-    module docstring).  ``v`` MUST be unique (callers pass arange) — both
-    paths then agree bit-for-bit.
-    """
-    import os
-
-    from fast_limo_tpu.ops import dispatch
-
-    if (_HAS_PALLAS and os.environ.get("FAST_LIMO_SORT_KERNEL") == "1"
-            and dispatch.kernel_enabled("sort")):
-        return sort3_tpu(k1, k2, v)
+    """Stable ascending sort by ``(k1, k2)``, carrying ``v``; ties keep
+    their original order.  Returns the sorted ``(k1, k2, v)``."""
     return jax.lax.sort((k1.astype(jnp.int32), k2.astype(jnp.int32),
                          v.astype(jnp.int32)), num_keys=2)

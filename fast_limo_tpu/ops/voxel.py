@@ -8,12 +8,13 @@ segmented mean under jit with a validity mask.
 Quirk preserved: the reference sets all three leaf dimensions from
 ``leafSize[0]`` (Localizer.cpp:61) — callers should pass a scalar leaf.
 
-TPU notes: the voxel id is packed into ONE 31-bit sort key (10 bits per
-axis + validity top bit) so grouping costs a single ``sort_key_val`` pass
-instead of a 4-key lexsort (~3× less sort work at 32k points, measured
-v5e), and the centroid accumulation is one (N,4) row scatter-add of
-``[x, y, z, 1]`` instead of separate sum/count scatters (scatter cost is
-per-op — tools/bench_gather2.py).  The 10-bit axis packing aliases voxels
+The voxel id is packed into ONE 31-bit sort key (10 bits per axis +
+validity top bit) so grouping costs a single ``sort_key_val`` pass instead
+of a 4-key lexsort, and the centroid accumulation is one (N,4) row
+scatter-add of ``[x, y, z, 1]`` instead of separate sum/count scatters.
+On a GPU that scatter-add runs with atomics, so the summation order (and
+the last bits of a centroid) can differ from run to run.  The 10-bit axis
+packing aliases voxels
 exactly 1024 leaves apart INSIDE one scan batch — at the 0.5-1 m leaves
 used everywhere that is a ≥512 m in-scan extent, beyond any supported
 sensor range (and an alias would merely merge two centroids of one scan).
@@ -21,8 +22,9 @@ sensor range (and an alias would merely merge two centroids of one scan).
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
+
+from fast_limo_tpu.ops import sort as psort
 
 
 def voxel_downsample(pts, valid, leaf: float):
@@ -39,8 +41,6 @@ def voxel_downsample(pts, valid, leaf: float):
            | ((vc[:, 1] & 0x3FF) << 10)
            | (vc[:, 2] & 0x3FF))
     key = jnp.where(valid, key, jnp.int32(0x7FFFFFFF))  # invalids sort last
-    from fast_limo_tpu.ops import sort as psort
-
     key_s, order = psort.sort_key_val(key, jnp.arange(N, dtype=jnp.int32))
 
     # ONE row gather applies the permutation to points+validity together

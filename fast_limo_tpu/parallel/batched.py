@@ -6,13 +6,11 @@ over a fleet axis: S independent (state, batch) pairs — S robots, or S
 map-reprocessing jobs — run as ONE XLA program with one dispatch, one
 host↔device round-trip, and S maps resident in HBM.
 
-Measured scaling (v5e, KITTI shapes — tools/bench_fleet.py): wall time per
-step grows ~linearly with S, i.e. aggregate scans/s is ≈flat.  The scan
-step's dominant costs are per-ROW hash-table gathers/scatters whose row
-count scales with S, so a single chip is already work-bound at S=1; the
-value of fleet mode is multi-tenancy (shared compilation, one dispatch
-stream, bounded per-session memory) rather than extra throughput.  For
-throughput, shard the MAP across chips instead (parallel/sharded.py).
+Whether batching raises aggregate scans/s on the GPU is not measured yet
+(tools/bench_fleet.py measures it).  The value of fleet mode is at least
+multi-tenancy: shared compilation, one dispatch stream, bounded
+per-session memory.  For map capacity, shard the MAP across devices
+instead (parallel/sharded.py).
 
 Semantics: each session's (LIOState, ScanBatch) evolves exactly as in the
 single-session pipeline (verified element-wise vs per-session runs in

@@ -5,7 +5,7 @@ computing of any kind"); the north star asks for a multi-host pod slice.  The
 sharded scan step (parallel/sharded.py) is already written against a
 `jax.sharding.Mesh` and compiles unchanged when that mesh spans processes —
 XLA lowers the kNN all_gather / HᵀH psum to cross-host collectives (Gloo on
-the CPU backend, ICI/DCN on a TPU pod).  What multi-process JAX *additionally*
+the CPU backend, NCCL between GPUs).  What multi-process JAX *additionally*
 needs, and what this module provides, is the runtime around it:
 
 * distributed initialization (`initialize`),
@@ -32,8 +32,8 @@ def initialize(coordinator_address: str, num_processes: int, process_id: int,
     """`jax.distributed.initialize` with the CPU-mesh test topology defaults.
 
     Call BEFORE any other jax API touches the backend.  On a real pod slice
-    the arguments come from the cluster environment (and TPU pods usually
-    need no arguments at all); the explicit form here serves the
+    the arguments come from the cluster environment; the explicit form
+    here serves the
     multi-process CPU CI topology.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,

@@ -5,7 +5,7 @@ design surface mandated by the north star: the voxel-hash map is partitioned
 over the mesh axis ``"map"`` by hash ownership (each device owns the slots
 whose global-hash high bits equal its index, so probe chains never cross
 devices), queries are replicated, per-shard kNN top-k candidates are merged
-with an ``all_gather`` over ICI, and the tiny iEKF algebra runs replicated.
+with an ``all_gather`` across devices, and the tiny iEKF algebra runs replicated.
 
 Memory scaling: a D-device mesh holds a D× larger map at the same per-chip
 HBM.  Compute scaling: the kNN gather work per chip drops ~D× (each chip only
@@ -39,8 +39,8 @@ def make_mesh(n_devices: int, devices=None) -> Mesh:
 def make_mesh_2d(n_map: int, n_data: int, devices=None) -> Mesh:
     """2-D mesh: 'map' (hash-sharded map memory) × 'data' (query throughput).
 
-    On a pod slice, lay 'map' along ICI-adjacent devices so the per-scan
-    kNN all_gather rides the fast links; 'data' only moves 12×12 psums.
+    The per-scan kNN all_gather runs over 'map'; 'data' only moves 12×12
+    psums.
     """
     n = n_map * n_data
     devices = devices if devices is not None else jax.devices()[:n]
@@ -81,7 +81,7 @@ def _out_specs(cfg: Config) -> pl.ScanOutput:
 def comm_volume(cfg: Config, n_map: int, n_data: int = 1) -> dict:
     """Analytic per-scan, per-device collective payloads (bytes).
 
-    The sharded step's ICI traffic is fully determined by the config, so
+    The sharded step's collective traffic is fully determined by the config, so
     scaling efficiency on real multi-chip hardware is predictable without
     the hardware: the only large collective is the kNN top-k ``all_gather``
     over the 'map' axis; the 'data' axis moves just 12×12 sufficient

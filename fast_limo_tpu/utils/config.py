@@ -2,11 +2,12 @@
 
 Mirrors `fast_limo::Config` (include/fast_limo/Utils/Config.hpp:23-95) and the
 ROS param loader (`src/main.cpp:101-168`, defaults preserved), plus a
-TPU-specific section (static shape caps, voxel-hash map geometry, mesh
+device section (``tpu:`` — static shape caps, voxel-hash map geometry, mesh
 sharding) that has no counterpart in the reference.
 
 YAML profiles in the reference layout (config/kitti.yaml etc.) load directly
-via :meth:`Config.from_yaml`.
+via :meth:`Config.from_yaml`, through the in-repo reader of the YAML subset
+the profiles use (utils/yamlsubset.py).
 """
 
 from __future__ import annotations
@@ -16,10 +17,7 @@ import math
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-try:
-    import yaml
-except ImportError:  # pragma: no cover
-    yaml = None
+from fast_limo_tpu.utils import yamlsubset
 
 
 def _f(v):
@@ -105,7 +103,8 @@ class IKFoMConfig:
 
 @dataclass
 class TPUConfig:
-    """TPU-native knobs (no reference counterpart): static shapes & map layout."""
+    """Device-side knobs (no reference counterpart): static shapes & map
+    layout."""
 
     max_points_per_scan: int = 32768      # padded scan size after preprocessing
     map_capacity: int = 2 ** 19           # voxel-hash slots
@@ -136,23 +135,23 @@ class TPUConfig:
                                           # invariant end to end (per-point
                                           # frame masks; downsample re-sorts
                                           # by voxel key), so the default
-                                          # skips the 32k argsort (~0.6 ms/
-                                          # scan on v5e); True restores the
-                                          # sorted layout bit-for-bit
+                                          # skips the 32k argsort; True
+                                          # restores the sorted layout
+                                          # bit-for-bit
     imu_batch: int = 64                   # max IMU samples integrated per scan step
     quantize_transfer: float = 0.0        # >0: ship scan points host→device as
                                           # int16 with this resolution (m/LSB);
-                                          # halves the per-scan payload on
-                                          # tunneled devices. 0.004 → ±131 m
+                                          # halves the per-scan host→device
+                                          # payload. 0.004 → ±131 m
                                           # range, ≤2 mm rounding (below lidar
                                           # noise). t_raw is scaled per scan;
                                           # requires epoch-relative t_raw
                                           # (always true through Localizer).
     scan_chunk: int = 1                   # scans batched per jitted dispatch
                                           # (>1: offline/replay throughput mode —
-                                          # amortizes the fixed per-dispatch cost
-                                          # of tunneled/remote accelerators at
-                                          # the price of chunk·scan_period
+                                          # amortizes the fixed per-dispatch
+                                          # host cost at the price of
+                                          # chunk·scan_period
                                           # latency; real-time keeps 1)
     insert_population: str = "full"       # "full" (reference-exact: register +
                                           # insert the WHOLE downsampled cloud,
@@ -215,7 +214,7 @@ class Config:
     imu_calib_time: float = 3.0
     gravity: float = 9.81     # Localizer ctor gravity_ (Localizer.cpp:25)
 
-    # ---- derived TPU geometry ----
+    # ---- derived map geometry ----
     @property
     def map_voxel_size(self) -> float:
         if self.tpu.map_voxel_size > 0:
@@ -234,10 +233,8 @@ class Config:
     # ---- loading ----
     @classmethod
     def from_yaml(cls, path: str) -> "Config":
-        if yaml is None:
-            raise RuntimeError("pyyaml not available")
         with open(path) as f:
-            d = yaml.safe_load(f) or {}
+            d = yamlsubset.load(f.read()) or {}
         return cls.from_dict(d)
 
     @classmethod

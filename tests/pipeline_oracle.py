@@ -15,13 +15,13 @@ choices where they exist (sequential predicts vs the pipeline's
 associative-scan; lstsq-style normal-equation plane solve vs the adjugate
 kernel; dict/array map vs the fused hash table), so agreement with the f32
 JAX pipeline over a trajectory is evidence that both implement the same
-algorithm and the f32/TPU path introduces only rounding-level error.
+algorithm and the f32 device path introduces only rounding-level error.
 
 The map model mirrors the ENGINE's documented spec — BLOCK-addressed
 voxel-hash with ROW_E=16-entry groups keyed on the 2×2×2-voxel block
 coordinate, per-voxel capacity B, group-full voxel rejection, and batch
 insert ordering by (group, packed-key, index) — because that IS the
-TPU-native redesign of the reference octree (see models/mapper.py docstring;
+array-program redesign of the reference octree (see models/mapper.py docstring;
 the octree itself cannot be the oracle for a voxel-hash map).  kNN
 candidates are the 4³-voxel superset spanned by the 8 gathered blocks
 (⊇ the reference's 27-cube coverage).

@@ -1,11 +1,16 @@
-"""ops/hstats — fused measurement-statistics kernel vs the jnp h_rows path."""
+"""The measurement module's H statistics (measurement.h_statistics /
+jacobian_rows) vs NumPy float64 rows built independently from the
+reference's calculate_H (Localizer.cpp:537-577)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from fast_limo_tpu.models import measurement
 from fast_limo_tpu.models import state as st
-from fast_limo_tpu.ops import hstats, s2, so3
+from fast_limo_tpu.ops import s2, so3
+
+import oracle
 
 
 @pytest.fixture
@@ -32,6 +37,27 @@ def _case(rng, N=1000, keep_frac=0.7):
     return pc, n_abcd, keep, x
 
 
+def _rows64(pc, n_abcd, keep, x, ee):
+    """f64 H rows / residuals (the calculate_H transcription of
+    tests/pipeline_oracle.OracleLIO._h_model)."""
+    pc, n_abcd, keep = (np.asarray(pc, np.float64),
+                        np.asarray(n_abcd, np.float64), np.asarray(keep))
+    R = oracle.qmat(np.asarray(x.rot, np.float64))
+    glob = pc @ R.T + np.asarray(x.pos, np.float64)
+    n = n_abcd[:, :3]
+    dist = np.sum(n * glob, axis=-1) + n_abcd[:, 3]
+    C = n @ R
+    A = np.cross(pc, C)
+    if ee:
+        RLI = oracle.qmat(np.asarray(x.rot_LI, np.float64))
+        p_lidar = (pc - np.asarray(x.t_LI, np.float64)) @ RLI
+        B = np.cross(p_lidar, C @ RLI)
+        H = np.concatenate([n, A, B, C], axis=1)
+    else:
+        H = np.concatenate([n, A, np.zeros_like(n), np.zeros_like(n)], axis=1)
+    return np.where(keep[:, None], H, 0.0), np.where(keep, -dist, 0.0)
+
+
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.abs(a - b).max() / (np.abs(a).max() + 1e-12)
@@ -40,53 +66,33 @@ def _rel(a, b):
 @pytest.mark.parametrize("ee", [True, False])
 def test_kernel_matches_reference(rng, ee):
     pc, n_abcd, keep, x = _case(rng)
-    r_HTH, r_HTh = hstats.hstats_reference(pc, n_abcd, keep, x, ee)
-    X = hstats.pack_inputs(pc, n_abcd, keep)
-    k_HTH, k_HTh = hstats.hstats_tpu(
-        X, hstats.pack_scalars(x), estimate_extrinsics=ee, interpret=True)
-    assert _rel(r_HTH, k_HTH) < 2e-5
-    assert _rel(r_HTh, k_HTh) < 2e-5
+    H, h = _rows64(pc, n_abcd, keep, x, ee)
+    HTH, HTh = measurement.h_statistics(pc, n_abcd, keep, x, ee)
+    assert HTH.dtype == jnp.float32
+    assert _rel(H.T @ H, HTH) < 2e-5
+    assert _rel(H.T @ h, HTh) < 2e-5
     if not ee:
-        # extrinsic blocks exactly zero in both
-        assert np.all(np.asarray(k_HTH)[6:, :] == 0)
-        assert np.all(np.asarray(k_HTh)[6:] == 0)
+        # extrinsic blocks exactly zero
+        assert np.all(np.asarray(HTH)[6:, :] == 0)
+        assert np.all(np.asarray(HTh)[6:] == 0)
 
 
 def test_padding_inert(rng):
-    """pack_inputs pads N to a multiple of 128 with keep=0 — padded rows
-    must contribute nothing."""
-    pc, n_abcd, keep, x = _case(rng, N=1000)   # pads to 1024
-    X = hstats.pack_inputs(pc, n_abcd, keep)
-    assert X.shape == (8 * 8, 128)
+    """Rows with keep=False contribute nothing, whatever their contents."""
+    pc, n_abcd, keep, x = _case(rng, N=1000)
     pc2 = jnp.concatenate([pc, jnp.ones((24, 3), jnp.float32) * 1e3])
     n2 = jnp.concatenate([n_abcd, jnp.ones((24, 4), jnp.float32)])
     k2 = jnp.concatenate([keep, jnp.zeros(24, bool)])
-    X2 = hstats.pack_inputs(pc2, n2, k2)
-    a = hstats.hstats_tpu(X, hstats.pack_scalars(x),
-                          estimate_extrinsics=True, interpret=True)
-    b = hstats.hstats_tpu(X2, hstats.pack_scalars(x),
-                          estimate_extrinsics=True, interpret=True)
+    a = measurement.h_statistics(pc, n_abcd, keep, x, True)
+    b = measurement.h_statistics(pc2, n2, k2, x, True)
     np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]), rtol=1e-6)
 
 
 def test_reference_matches_measurement_module(rng):
-    """hstats_reference IS the measurement-module math (same H, h)."""
-    from fast_limo_tpu.models import measurement  # noqa: F401  (parity anchor)
-
+    """jacobian_rows row for row equals the f64 calculate_H rows."""
     pc, n_abcd, keep, x = _case(rng, N=500)
-    HTH, HTh = hstats.hstats_reference(pc, n_abcd, keep, x, True)
-    # rebuild from explicit rows
-    glob = so3.quat_rotate(x.rot, pc) + x.pos
-    dist = jnp.sum(n_abcd[:, :3] * glob, axis=-1) + n_abcd[:, 3]
-    n = n_abcd[:, :3]
-    Rinv = so3.quat_to_mat(so3.quat_conj(x.rot))
-    C = n @ Rinv.T
-    A = jnp.cross(pc, C)
-    RLIinv = so3.quat_to_mat(so3.quat_conj(x.rot_LI))
-    p_lidar = (pc - x.t_LI) @ RLIinv.T
-    B = jnp.cross(p_lidar, C @ RLIinv.T)
-    H = jnp.where(keep[:, None], jnp.concatenate([n, A, B, C], -1), 0.0)
-    h = jnp.where(keep, -dist, 0.0)
-    np.testing.assert_allclose(np.asarray(HTH), np.asarray(H.T @ H), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(HTh), np.asarray(H.T @ h), rtol=1e-5)
+    H, h = measurement.jacobian_rows(pc, n_abcd, keep, x, True)
+    H64, h64 = _rows64(pc, n_abcd, keep, x, True)
+    np.testing.assert_allclose(np.asarray(H), H64, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(h), h64, rtol=1e-4, atol=1e-4)

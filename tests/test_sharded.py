@@ -191,7 +191,7 @@ class TestShardedLifecycle:
         v1 = sharded.comm_volume(cfg, 1, 1)
         v4 = sharded.comm_volume(cfg, 4, 1)
         v42 = sharded.comm_volume(cfg, 4, 2)
-        assert v1["knn_allgather_bytes"] == 0       # single chip: no ICI
+        assert v1["knn_allgather_bytes"] == 0       # single device: no collective
         assert v4["knn_allgather_bytes"] > 0
         # query sharding halves the per-device gather payload of the
         # n_q-proportional terms; the stale-patch branch's fixed
@@ -206,7 +206,7 @@ class TestShardedLifecycle:
 
     def test_comm_model_matches_compiled_hlo_1d(self):
         """The analytic comm model must equal the ACTUAL collectives in the
-        compiled program — a kNN-layout change that alters ICI traffic
+        compiled program — a kNN-layout change that alters collective traffic
         breaks this test instead of silently invalidating the scaling
         tables (round-2 weak #6)."""
         cfg = ge._tiny_cfg(n_pts=512, map_cap=1024, n_shards=4)

@@ -1,5 +1,6 @@
-"""ops/update_body — the fused update-iteration body kernel vs the exact
-jnp body (models/iekf._body_jnp fast path) and an f64 oracle."""
+"""models/iekf._body_jnp — one update-iteration body (chart projection,
+gain, degeneracy guard, boxplus, terminal covariance) in float32 vs the
+same algebra in float64."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,7 +9,7 @@ import pytest
 from fast_limo_tpu.models import iekf
 from fast_limo_tpu.models import state as st
 from fast_limo_tpu.ops import gain as gain_op
-from fast_limo_tpu.ops import s2, so3, update_body
+from fast_limo_tpu.ops import s2, so3
 
 
 @pytest.fixture
@@ -67,10 +68,12 @@ def _compare(case, err_ratio=12.0, floor=5e-5):
     xp64 = st.NavState(*[_to64(v) for v in x_prop])
     ref64 = _fastpath_body(_to64(HTH), _to64(HTh), _to64(P), x64, xp64, R)
     ref32 = _fastpath_body(HTH, HTh, P, x, x_prop, R)
-    # D = -inf: every eigenvalue passes, the in-kernel guard is (bit-clean)
-    # identity — isolates the body algebra against the guard-free reference
-    xk, Pk, dxk, gm, _me = update_body.update_body_tpu(
-        HTH, HTh, P, x, x_prop, R, -1e30, interpret=True)
+    # D = -inf: the Gershgorin certificate holds, the eigh is skipped and
+    # the guard is the identity — isolates the body algebra against the
+    # guard-free reference
+    xk, Pk, dxk, me = iekf._body_jnp(x, x_prop, P, HTH, HTh, R, -1e30)
+    assert xk.pos.dtype == jnp.float32
+    assert np.isinf(float(me))          # the certificate skipped the eigh
     kern = (xk, Pk, dxk)
 
     names = ("x_next", "P_fin", "dx_")
@@ -83,12 +86,7 @@ def _compare(case, err_ratio=12.0, floor=5e-5):
         e32 = np.max(np.abs(t32 - t64)) / s
         ek = np.max(np.abs(tk - t64)) / s
         assert ek <= err_ratio * e32 + floor, \
-            f"{name}: kernel err {ek:.2e} vs jnp-f32 err {e32:.2e}"
-
-    # Gershgorin bound vs numpy
-    H6 = np.asarray(HTH, np.float64)[:6, :6]
-    gref = (np.diag(H6) - (np.abs(H6).sum(1) - np.abs(np.diag(H6)))).min()
-    assert abs(float(gm) - gref) <= 1e-3 * (abs(gref) + 1.0)
+            f"{name}: body err {ek:.2e} vs fast-path-f32 err {e32:.2e}"
 
 
 def test_small_iterate_delta(rng):
@@ -107,8 +105,8 @@ def test_zero_extrinsic_dims(rng):
 
 
 def test_guarded_body_matches_jnp_body(rng):
-    """With a real D, the in-kernel Jacobi guard must match the jnp body's
-    eigh guard (iekf._body_jnp) on a degenerate problem."""
+    """With a real D on a degenerate problem, the float32 body (eigh guard
+    engaged) must match the same body in float64."""
     x_prop = _rand_state(rng, jnp.float32)
     pert = jnp.asarray(rng.standard_normal(23) * 1e-3, jnp.float32)
     x = st.boxplus(x_prop, pert)
@@ -124,21 +122,23 @@ def test_guarded_body_matches_jnp_body(rng):
     P = jnp.asarray(Q @ Q.T + np.eye(23) * 0.01, jnp.float32)
     R, D = 1e-3, 5.0
 
-    want = iekf._body_jnp(x, x_prop, P, HTH, HTh, R, D)
-    got = update_body.update_body_tpu(HTH, HTh, P, x, x_prop, R, D,
-                                      interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(st.as_vector(got[0])), np.asarray(st.as_vector(want[0])),
-        rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]),
-                               rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(want[2]),
-                               rtol=1e-3, atol=1e-4)
+    want = iekf._body_jnp(st.NavState(*[_to64(v) for v in x]),
+                          st.NavState(*[_to64(v) for v in x_prop]),
+                          _to64(P), _to64(HTH), _to64(HTh), R, D)
+    got = iekf._body_jnp(x, x_prop, P, HTH, HTh, R, D)
+    assert got[0].pos.dtype == jnp.float32
+    # the guard fired: three pose-block eigenvalues ~0.5 < D
+    assert float(got[3]) < D and float(want[3]) < D
+    for name, g, w in (("x_next", st.as_vector(got[0]), st.as_vector(want[0])),
+                       ("P_fin", got[1], want[1]), ("dx_", got[2], want[2])):
+        g, w = np.asarray(g, np.float64), np.asarray(w)
+        err = np.max(np.abs(g - w)) / (np.max(np.abs(w)) + 1e-12)
+        assert err < 2e-4, f"{name}: float32 body err {err:.2e} vs float64"
 
 
 def test_update_iterated_parity_cpu(rng):
-    """update_iterated (CPU path) after the body refactor still matches a
-    manually-iterated fast-path body on a non-degenerate problem."""
+    """update_iterated matches a manually-iterated fast-path body on a
+    non-degenerate problem."""
     HTH, HTh, P, x, x_prop, R = _case(rng, 1e-3)
 
     def h_model(_x):

@@ -9,9 +9,14 @@ import pytest
 from fast_limo_tpu.models import pipeline as pl
 from fast_limo_tpu.utils import checkpoint as ckpt
 from fast_limo_tpu.utils.config import Config
+from fast_limo_tpu.utils import yamlsubset
 from fast_limo_tpu.utils.telemetry import Telemetry
 
 import __graft_entry__ as ge
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = os.path.join(REPO, "configs")
+PROFILES = ("kitti", "cat", "ona", "utbm")
 
 
 class TestConfig:
@@ -25,7 +30,7 @@ class TestConfig:
         assert cfg.sensor_type == 1
 
     def test_loads_reference_kitti_yaml(self):
-        cfg = Config.from_yaml("/root/reference/config/kitti.yaml")
+        cfg = Config.from_yaml(os.path.join(CONFIGS, "kitti_tpu.yaml"))
         assert cfg.sensor_type == 1
         assert cfg.filters.voxel_active
         assert cfg.filters.leafSize[0] == 1.0
@@ -37,13 +42,50 @@ class TestConfig:
         assert cfg.time_offset
         # half-FoV conversion (main.cpp:143-146)
         assert cfg.filters.fov_angle == pytest.approx(180 * np.pi / 360.0)
-        # lidar extrinsics parsed
+        # lidar extrinsics parsed (a flow list spanning three lines)
         assert cfg.extrinsics.lidar2baselink_t[0] == pytest.approx(8.086759e-01)
+        assert cfg.extrinsics.lidar2baselink_R[8] == pytest.approx(9.998881e-01)
+        # the device section
+        assert cfg.tpu.map_capacity == 131072
+        assert cfg.tpu.knn_refresh == "first"
 
     def test_all_reference_yamls_parse(self):
-        for name in ("params", "kitti", "cat", "ona", "utbm"):
-            cfg = Config.from_yaml(f"/root/reference/config/{name}.yaml")
+        for name in PROFILES:
+            cfg = Config.from_yaml(os.path.join(CONFIGS, f"{name}_tpu.yaml"))
             assert 0 <= cfg.sensor_type <= 4
+            assert cfg.tpu.max_points_per_scan > 0
+
+    @pytest.mark.parametrize("name", PROFILES)
+    def test_yaml_reader_matches_pyyaml(self, name):
+        """The in-repo YAML-subset reader parses every profile exactly as
+        PyYAML's safe_load does."""
+        yaml = pytest.importorskip("yaml")
+        with open(os.path.join(CONFIGS, f"{name}_tpu.yaml")) as f:
+            text = f.read()
+        assert yamlsubset.load(text) == yaml.safe_load(text)
+
+    def test_yaml_reader_subset_features(self):
+        text = (
+            "# comment\n"
+            "a: 1          # trailing comment\n"
+            "b: 'x # y'\n"
+            "c:\n"
+            "  - 1.e+4\n"
+            "  - {k: [1, 2], m: null}\n"
+            "  -\n"
+            "d: [ 1.5,\n"
+            "     -2 ]\n"
+            "e:\n"
+            "- f: yes\n"
+            "  g: 5.0e-2\n"
+            "h: 1e-4\n")
+        assert yamlsubset.load(text) == {
+            "a": 1, "b": "x # y", "c": [1e4, {"k": [1, 2], "m": None}, None],
+            "d": [1.5, -2], "e": [{"f": True, "g": 0.05}], "h": "1e-4"}
+        with pytest.raises(ValueError):
+            yamlsubset.load("a: [1, 2\n")
+        with pytest.raises(ValueError):
+            yamlsubset.load("a: &anchor 1\n")
 
     def test_derived_map_geometry(self):
         cfg = Config()
@@ -51,6 +93,41 @@ class TestConfig:
         assert cfg.map_voxel_size == pytest.approx(0.6)
         cfg.tpu.map_voxel_size = 1.0
         assert cfg.map_voxel_size == 1.0
+
+
+class TestCompileCache:
+    """The package's persistent compilation cache: an explicit
+    JAX_COMPILATION_CACHE_DIR is left to JAX; otherwise the cache lives at
+    <repo>/build/jax_cache.  Each case runs a fresh CPU process, since the
+    choice is made at import."""
+
+    @staticmethod
+    def _probe(env_cache):
+        import subprocess
+        import sys
+
+        env = {k: v for k, v in os.environ.items()
+               if k != "JAX_COMPILATION_CACHE_DIR"}
+        env["JAX_PLATFORMS"] = "cpu"
+        if env_cache is not None:
+            env["JAX_COMPILATION_CACHE_DIR"] = env_cache
+        code = ("import jax, fast_limo_tpu as f; "
+                "print(f.CACHE_DIR); print(jax.config.jax_compilation_cache_dir)")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120,
+                             check=True)
+        return out.stdout.strip().splitlines()[-2:]
+
+    def test_env_dir_wins(self, tmp_path):
+        own, used = self._probe(str(tmp_path / "cc"))
+        assert own == "None"
+        assert used == str(tmp_path / "cc")
+
+    def test_default_dir_in_checkout(self):
+        own, used = self._probe(None)
+        want = os.path.join(REPO, "build", "jax_cache")
+        assert own == want
+        assert used == want
 
 
 class TestTelemetry:

@@ -2,9 +2,9 @@
 """Fleet (multi-session) throughput on the attached accelerator.
 
 Measures aggregate scans/s of the vmapped scan step at fleet sizes 1..S —
-the single-chip serving-scale story: the per-scan program is latency-bound,
-so batching sessions multiplies throughput at near-constant wall time until
-the chip's compute saturates.
+the single-card serving-scale story: if the per-scan program is
+latency-bound, batching sessions multiplies throughput at near-constant
+wall time until the card's compute saturates.
 """
 
 import os
@@ -12,7 +12,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
 
 import importlib.util
 

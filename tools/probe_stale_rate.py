@@ -3,12 +3,12 @@
 
 Replays a bench-like synthetic sequence with cfg.debug=True and reports the
 per-scan ``n_stale`` telemetry (queries whose staleness certificate fails
-at the posterior — each such query forces the exact re-gather fallback /
-the whole-loop kernel's ok=False).  The loop kernel's all-or-nothing
-fallback only earns its keep if n_stale == 0 on most scans.
+at the posterior — each such query forces the per-query re-gather, and
+more than the budget a full re-gather).
 
 Usage: python tools/probe_stale_rate.py [n_scans] [n_points]
-(runs on CPU by default — staleness is geometry/motion, not hardware)
+(runs on the CPU unless STALE_PROBE_DEVICE=1 — staleness is geometry and
+motion, not hardware)
 """
 
 import os
@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-if os.environ.get("STALE_PROBE_TPU", "") != "1":
+if os.environ.get("STALE_PROBE_DEVICE", "") != "1":
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
@@ -68,7 +68,6 @@ def main():
     scans = [seq.scan(i) for i in range(n)]
     si = 0
     stales = []
-    fallbacks = []
     while si < n:
         for k in range(len(stamps)):
             loc.update_imu(stamps[k], acc[k], gyro[k])
@@ -78,7 +77,6 @@ def main():
                 if loc.last_output is not None and \
                         loc.last_output.debug is not None:
                     stales.append(int(loc.last_output.debug.n_stale))
-                    fallbacks.append(bool(loc.last_output.debug.loop_fallback))
                 si += 1
         break
     s = np.asarray(stales)
@@ -87,10 +85,6 @@ def main():
           f"p50={np.median(s):.0f}  p90={np.quantile(s, 0.9):.0f}  "
           f"max={s.max()}")
     print("per-scan:", s.tolist())
-    if fallbacks:
-        f = np.asarray(fallbacks)
-        print(f"loop-kernel fallback frac: {f.mean():.2f} "
-              f"({int(f.sum())}/{len(f)} scans)")
 
 
 if __name__ == "__main__":
